@@ -14,7 +14,7 @@ tools/build.cpp:247-303 `fulgor color`). Pipeline per tier:
             sets form similarity CHAINS and delta-code the symmetric
             difference vs their chain parent (core/colorstores.DiffStore).
             Set ids stay stable (no unitig permutation / dictionary rebuild
-            as the reference does — the TPU container gathers, not ranks).
+            as the reference does — the device layout gathers, not ranks).
   meta_diff meta partitioning (finer grain than the meta tier), then the
             per-set GLOBAL partial-id lists are chain-diff coded by the
             same DiffStore (core/colorstores.MetaDiffStore).

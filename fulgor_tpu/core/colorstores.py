@@ -2,7 +2,7 @@
 
 Reference: include/color_sets/{hybrid,meta,differential,meta_differential}.hpp.
 
-Design difference vs the reference (TPU-first): the stores are SERIALIZATION
+Design difference vs the reference (device-first): the stores are SERIALIZATION
 tiers only. Queries always run on the dense bitset matrix built at load from
 `decode_all()`, so no per-codec iterator algebra exists on the query path
 (the reference's leapfrog/merge specializations per codec are CPU-isms).

@@ -1,6 +1,6 @@
 """Host-side k-mer packing / canonicalization (numpy, vectorized).
 
-Conventions (ours, TPU-first — the reference delegates this to SSHash):
+Conventions (ours — the reference delegates this to SSHash):
 
 * 2-bit codes A=0, C=1, G=2, T=3; complement(x) = 3 - x.
 * A k-mer (k <= 31) packs into a uint64 with the LEFTMOST base in the most

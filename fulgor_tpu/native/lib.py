@@ -42,7 +42,13 @@ def _load():
         if _lib is not None:
             return _lib
         if (not os.path.exists(_SO)) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-            subprocess.run(["make", "-C", _DIR], check=True, capture_output=True)
+            r = subprocess.run(["make", "-C", _DIR], capture_output=True,
+                               text=True)
+            if r.returncode != 0:
+                raise RuntimeError(
+                    f"building the native library failed (make exit "
+                    f"{r.returncode}; it needs g++ and the zlib headers):\n"
+                    f"{r.stdout}{r.stderr}")
         lib = ct.CDLL(_SO)
         lib.fn_free.argtypes = [ct.c_void_p]
         lib.fn_build_ccdbg.argtypes = [ct.c_char_p, ct.c_int, ct.c_int, ct.POINTER(CcdbgOut)]

@@ -1,10 +1,10 @@
 // fulgor-tpu native host library.
 //
-// TPU-native replacement for the reference's native build stack: GGCAT
-// (ccdBG construction), SSHash dictionary *construction* (here: bucketed
-// cuckoo table build), and the bits codecs' hot decode loops. The query
-// compute path lives on TPU (fulgor_tpu/ops); this library only prepares
-// dense arrays for it and accelerates host-side build/load.
+// Replacement for the reference's native build stack: GGCAT (ccdBG
+// construction), SSHash dictionary *construction* (here: bucketed cuckoo
+// table build), and the bits codecs' hot decode loops. The query compute
+// path lives on the accelerator (fulgor_tpu/ops); this library only
+// prepares dense arrays for it and accelerates host-side build/load.
 //
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 in the image).
 // All returned buffers are allocated with malloc and must be released with
@@ -20,6 +20,7 @@
 #include <algorithm>
 #include <atomic>
 #include <cassert>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -883,8 +884,8 @@ static int build_ccdbg_core(const char* paths, int num_files, int k, int num_pas
 // permutation) uniquely identifies the key — no full key storage, no false
 // positives. Slot = u64: [0..b+1) value | [b+1..63) remainder | bit63
 // which-hash. Empty slot: value field all-ones (value <= n-1 < 2^(b+1)-1
-// by construction). Bucket row = 2 slots = 16 B — the TPU gathers 16 B
-// rows ~1.6x faster than 24 B rows (docs/DESIGN-NOTES.md).
+// by construction). Bucket row = 2 slots = 16 B: one row gather per hash
+// choice (docs/DESIGN-NOTES.md §2).
 
 static const uint64_t P62_MASK = (1ULL << 62) - 1;
 static const uint64_t PI1_C1 = 0x9E3779B97F4A7C15ULL, PI1_C2 = 0xBF58476D1CE4E5B9ULL;
@@ -1725,6 +1726,9 @@ extern "C" int fn_format_psa_ascii_bits(const uint32_t* qids, const uint32_t* bi
     // formats on all of its worker threads; src/ps_utils.cpp:48-83).
     unsigned T = host_threads();
     if (n < 1024) T = 1;
+#ifndef _OPENMP
+    T = 1;  // the parallel region below runs once
+#endif
     std::vector<char*> part((size_t)T, nullptr);
     std::vector<size_t> plen((size_t)T, 0);
     std::vector<int64_t> pmapped((size_t)T, 0);
@@ -1802,6 +1806,9 @@ extern "C" int fn_format_psa_ascii_bits_grouped(
     int64_t* out_mapped) {
     unsigned T = host_threads();
     if (G < 64) T = 1;
+#ifndef _OPENMP
+    T = 1;  // the parallel region below runs once
+#endif
     std::vector<char*> part((size_t)T, nullptr);
     std::vector<int64_t> blen(G);
     std::vector<uint32_t> bcnt(G);
@@ -2029,6 +2036,7 @@ extern "C" void fn_pack_patterns(const uint64_t* pats, const uint64_t* lens,
 static void bisect2_core(const float* X, int32_t D, const int64_t* idx,
                          int64_t m, int64_t i0, int32_t max_iter,
                          uint8_t* assign, double* sse_out, bool par) {
+    (void)par;  // read only by the OpenMP if-clauses
     const int64_t CHUNK = 8192;
     const int64_t nch = (m + CHUNK - 1) / CHUNK;
     std::vector<double> c0(D), c1(D);

@@ -1,8 +1,9 @@
 """Device-side color-set algebra (replaces the reference's iterator leapfrog
 machinery, src/ps_full_intersection.cpp / ps_threshold_union.cpp).
 
-TPU formulation: distinct color sets live as a dense bitset matrix
-(num_sets, ceil(C/32)) uint32 in HBM. Per read batch (B, W windows):
+Device formulation: distinct color sets live as a dense bitset matrix
+(num_sets, ceil(C/32)) uint32 in device memory. Per read batch (B, W
+windows):
 
   full intersection  = gather the bit row of EVERY positive window and
                        AND-reduce over windows (misses contribute all-ones).
@@ -12,10 +13,16 @@ TPU formulation: distinct color sets live as a dense bitset matrix
                        all sorts/scatters from the hot path and makes the
                        result exact for every read (no overflow path).
   threshold union    = scores[b,c] = sum_w bit(set(w), c) over positive
-                       windows — chunked (unpack bits -> bf16 MXU matmul).
+                       windows — chunked (unpack bits -> f32 matmul).
                        Summing duplicate windows directly equals the
                        reference's per-unitig multiplicity aggregation
                        (src/ps_threshold_union.cpp:329-387).
+
+Every count matmul runs at lax.Precision.HIGHEST: its operands are 0/1 or
+small window counts and its sums are window counts, which f32 holds exactly
+up to 2^24. A backend's default precision may be lower (TF32 on NVIDIA
+tensor cores keeps 10 mantissa bits, exact only below 2^11), so the
+precision is pinned rather than inherited.
 """
 
 from __future__ import annotations
@@ -27,11 +34,14 @@ from ..constants import INVALID_U32
 
 INV = jnp.uint32(INVALID_U32)
 
+# Exact f32 counting: see the module docstring.
+COUNT_PRECISION = jax.lax.Precision.HIGHEST
+
 
 # The one-hot threshold: with S distinct sets, the per-window gather can be
-# replaced by a comparison-reduce (B,W,S+1) + one MXU matmul — no gathers at
-# all. Worth it while B*W*S stays comfortably in HBM-traffic terms; beyond
-# that the per-window gather path takes over.
+# replaced by a comparison-reduce (B,W,S+1) fused into its reduction + one
+# matmul — no gathers at all. Worth it while the B*W*S compare work stays
+# small; beyond that the per-window gather path takes over.
 ONEHOT_MAX_SETS = 2048
 
 
@@ -67,11 +77,14 @@ def pack_bool_bits(mask: jax.Array) -> jax.Array:
 
 def full_intersection_onehot(dense_bits: jax.Array, hit: jax.Array, csid: jax.Array):
     """color c survives iff NO positive window's set misses c:
-    (P @ (1 - bits))[b, c] == 0. One matmul, zero gathers."""
+    (P @ (1 - bits))[b, c] == 0. One matmul, zero gathers; exact at
+    COUNT_PRECISION (sums are window counts < 2^24)."""
     S, C32 = dense_bits.shape
     P = set_presence_counts(hit, csid, S)
     notbits = 1.0 - unpacked_bits_f32(dense_bits)
-    missing = jnp.einsum("bs,sc->bc", P, notbits, preferred_element_type=jnp.float32)
+    missing = jnp.einsum("bs,sc->bc", P, notbits,
+                         precision=COUNT_PRECISION,
+                         preferred_element_type=jnp.float32)
     mapped = jnp.any(hit, axis=1)
     keep = (missing == 0.0) & mapped[:, None]
     return pack_bool_bits(keep)
@@ -80,11 +93,12 @@ def full_intersection_onehot(dense_bits: jax.Array, hit: jax.Array, csid: jax.Ar
 def threshold_union_scores_onehot(
     dense_bits: jax.Array, hit: jax.Array, csid: jax.Array, num_colors: int
 ):
-    """scores = P @ bits (exact f32; counts <= W < 2^24)."""
+    """scores = P @ bits, exact at COUNT_PRECISION (counts <= W < 2^24)."""
     S, C32 = dense_bits.shape
     P = set_presence_counts(hit, csid, S)
     bitsf = unpacked_bits_f32(dense_bits)
-    scores = jnp.einsum("bs,sc->bc", P, bitsf, preferred_element_type=jnp.float32)
+    scores = jnp.einsum("bs,sc->bc", P, bitsf, precision=COUNT_PRECISION,
+                        preferred_element_type=jnp.float32)
     return scores[:, :num_colors]
 
 
@@ -113,8 +127,8 @@ def threshold_union_scores_windows(
     """scores[b, c] = #positive windows whose color set contains c.
 
     Chunked over windows: gather (B, chunk, C32) rows, unpack to bits,
-    accumulate with an MXU matmul against the per-window positivity weights.
-    Exact in f32 (scores <= W < 2^24). -> (B, C) float32.
+    accumulate with a matmul against the per-window positivity weights.
+    Exact at COUNT_PRECISION (scores <= W < 2^24). -> (B, C) float32.
     """
     B, W = csid.shape
     C32 = dense_bits.shape[1]
@@ -136,7 +150,9 @@ def threshold_union_scores_windows(
         rows = jnp.take(dense_bits, ids, axis=0)  # (B, chunk, C32)
         bits = ((rows[..., None] >> shifts) & jnp.uint32(1)).astype(jnp.float32)
         bits = bits.reshape(B, chunk, C32 * 32)
-        return acc + jnp.einsum("bm,bmc->bc", w, bits, preferred_element_type=jnp.float32), None
+        return acc + jnp.einsum("bm,bmc->bc", w, bits,
+                                precision=COUNT_PRECISION,
+                                preferred_element_type=jnp.float32), None
 
     acc0 = jnp.zeros((B, C32 * 32), dtype=jnp.float32)
     acc, _ = jax.lax.scan(step, acc0, (ids_c, w_c))
@@ -145,15 +161,14 @@ def threshold_union_scores_windows(
 
 # ---------------------------------------------------------------------------
 # Compaction utilities (kept for the mesh path / future compressed decode:
-# exchanging compact run lists over ICI beats shipping every window).
+# exchanging compact run lists between devices beats shipping every window).
 # ---------------------------------------------------------------------------
 
 
 def mask_positions(mask: jax.Array, R: int):
     """Window positions of the first R set lanes of each row — the scatter-
-    free compaction primitive (device scatters run at ~35M elems/s on this
-    chip, DESIGN-NOTES §1; popcount rank + tiny take_along gathers replace
-    them everywhere on the hot path).
+    free compaction primitive (popcount rank + tiny take_along gathers in
+    place of data-dependent scatters everywhere on the hot path).
 
     mask: (B, W) bool -> (total (B,) i32, pos (B, R) i32; slots past total
     hold 0)."""
@@ -268,7 +283,8 @@ def threshold_union_scores_runs(
     num_colors: int,
     chunk: int = 8,
 ):
-    """Scores over compacted runs (weights = run window counts)."""
+    """Scores over compacted runs (weights = run window counts; exact at
+    COUNT_PRECISION, scores <= W < 2^24)."""
     B, R = run_csid.shape
     C32 = dense_bits.shape[1]
     valid = run_csid != INV
@@ -288,7 +304,9 @@ def threshold_union_scores_runs(
         rows = jnp.take(dense_bits, ids, axis=0)
         bits = ((rows[..., None] >> shifts) & jnp.uint32(1)).astype(jnp.float32)
         bits = bits.reshape(B, chunk, C32 * 32)
-        return acc + jnp.einsum("bm,bmc->bc", wt, bits, preferred_element_type=jnp.float32), None
+        return acc + jnp.einsum("bm,bmc->bc", wt, bits,
+                                precision=COUNT_PRECISION,
+                                preferred_element_type=jnp.float32), None
 
     acc, _ = jax.lax.scan(step, jnp.zeros((B, C32 * 32), dtype=jnp.float32), (ids_c, w_c))
     return acc[:, :num_colors]

@@ -1140,10 +1140,9 @@ def _probe_entries(slots, text32, sec_table, minval, iL, iR, sigL, sigR,
     probes stay EXACT where they decide — a hit is text-verified, a
     non-ovf miss exhausted all candidates — they only raise ovf more
     often, and ovf reads re-derive through a full-budget redo kernel
-    (QueryEngine._device_csids_many). On-chip: each verify candidate
-    costs ~22 ms and each skew candidate ~70 ms of a 465 ms/32k-batch
-    probe, so the engine's main kernels run (4, 2) and the redo kernel
-    (8, 4).
+    (QueryEngine._device_csids_many). Each verify or skew candidate adds
+    gathers over the whole lane grid, so the engine's main kernels run
+    trimmed budgets and the redo kernel (8, 4).
     stage1: stop after the slot-window verifies and return
     (hit, val, cnt, need_sec) — the staged probe's cheap first pass (no
     skew gathers on the full lane grid at all; see _probe_staged).

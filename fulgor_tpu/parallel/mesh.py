@@ -1,5 +1,5 @@
-"""Multi-chip query sharding (the reference is single-node shared-memory;
-this is the TPU-native scale-out per SURVEY.md §2.3 / §5).
+"""Multi-device query sharding (the reference is single-node shared-memory;
+this is the device scale-out per SURVEY.md §2.3 / §5).
 
 Mesh axes:
   'data'  — reads data-parallel (the reference's worker threads)
@@ -13,7 +13,8 @@ One query step over a (D, P) mesh:
            gather runs exactly once per read globally) and collapses
            adjacent windows into compact (csid, count) runs;
   phase 2  `all_gather` of the compact runs along 'color' (tiny: R uint32
-           per read, rides ICI — vs shipping every window);
+           per read over the device interconnect — vs shipping every
+           window);
   phase 3  each device ANDs / matmuls its color-word shard for the gathered
            row-batch -> output sharded ('data', 'color').
 

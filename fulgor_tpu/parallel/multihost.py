@@ -1,20 +1,21 @@
-"""Multi-host (DCN) scale-out for the query tools.
+"""Multi-host scale-out for the query tools.
 
 The reference is a single-process, multi-threaded program (worker threads
 over reads, src/psa.cpp); scaling past one host is this framework's
 extension target (SURVEY §2.3, BASELINE.md "1→N host scaling"). The
-TPU-native design keeps DCN off the hot path entirely:
+design keeps the network between machines off the hot path entirely:
 
   * reads are DATA-parallel across host processes — each process queries
     only chunks with index % num_procs == proc_id of the shared FASTQ
     (engine._stream(shard=...)), using its LOCAL device mesh
-    (parallel/mesh.py) for the color-TP/ reads-DP work that rides ICI;
+    (parallel/mesh.py) for the color-TP/ reads-DP work over the
+    machine's own device interconnect (NVLink between GPUs);
   * read ids stay GLOBAL file ordinals, so per-process fragments k-way
     merge by id into the byte-equal single-host output;
   * the only cross-host traffic is jax.distributed bring-up, one barrier
     when fragments are complete, and the filesystem merge on process 0 —
-    exactly the scaling-book recipe: dense compute + collectives within
-    the ICI domain, embarrassingly-parallel sharding over DCN.
+    dense compute + collectives within one machine, embarrassingly-
+    parallel sharding across machines.
 
 Every process parses the whole (usually gzip) stream but DISPATCHES only
 its own chunks: sequential decompress+parse runs at native speed on the

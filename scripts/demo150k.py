@@ -1,7 +1,7 @@
-"""150k-color-regime demo (VERDICT round-3 item 6): build a ~65k-genome
-block-structured corpus (short genomes — structure matters, length
-doesn't), force the no-dense-matrix regime, and measure FI + TU through
-the runs paths on the real chip, recording reads/s and peak memory.
+"""150k-color-regime demo: build a ~65k-genome block-structured corpus
+(short genomes — structure matters, length doesn't), force the
+no-dense-matrix regime, and run FI + TU through the runs paths on the GPU,
+recording reads/s and peak host memory.
 
 Usage: python scripts/demo150k.py [num_genomes]
 """
@@ -11,10 +11,11 @@ import resource
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 os.environ["FULGOR_DENSE_MAX_BYTES"] = "0"  # the regime under test
 
-CACHE = "/root/repo/bench_cache"
+CACHE = os.path.join(REPO, "bench_cache")
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 65536
 K = 31
 
@@ -50,10 +51,13 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(CACHE, "jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from fulgor_tpu.compile_cache import enable_compile_cache
     from fulgor_tpu.query.engine import QueryEngine
+
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    print(f"device: {dev.platform} {dev.device_kind} x{len(jax.devices())}",
+          flush=True)
 
     idx = Index.load(index_path)
     nu = len(idx.unitig_offs) - 1

@@ -2,8 +2,8 @@
 """Measure all four color-store tiers on a BLOCK-structured corpus
 (gene presence/absence, clade-correlated — the structure the reference's
 Salmonella meta/meta-diff ratios reflect, README.md:187-191) vs the
-scattered-SNP corpus where round 2 measured meta 1.34x / diff 2.55x /
-meta-diff 1.60x (VERDICT round-2 missing #3).
+scattered-SNP corpus (pan1k), where the tiers measured meta 1.34x /
+diff 2.55x / meta-diff 1.60x (docs/DESIGN-NOTES.md §8).
 
 Host-only (JAX_PLATFORMS=cpu recommended). Caches under bench_cache/blocks.
 """

@@ -1,4 +1,4 @@
-"""Multi-host (DCN) scale-out: chunk sharding, id-global fragments, merge.
+"""Multi-host scale-out: chunk sharding, id-global fragments, merge.
 
 The sharding layer is process-count-agnostic host logic, so the sim-mode
 test runs every shard pass in ONE process and must reproduce the
@@ -118,11 +118,8 @@ def test_single_proc_multihost_degenerates(built, tmp_path):
 _WORKER = r"""
 import os, sys
 os.environ["JAX_PLATFORMS"] = "cpu"
-import jax
-jax.config.update("jax_platforms", "cpu")
-cache = os.path.join(os.path.expanduser("~"), ".cache", "fulgor_tpu_xla_tests")
-jax.config.update("jax_compilation_cache_dir", cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from fulgor_tpu.compile_cache import enable_compile_cache
+enable_compile_cache()
 index_path, qfile, out, coord, pid, np_ = sys.argv[1:7]
 from fulgor_tpu.parallel import multihost as MH
 MH.init_multihost(coord, int(np_), int(pid))

@@ -211,3 +211,66 @@ def test_runs_strategy_large_colors(rng):
             if hit[b].any() else np.zeros(C32 * 32, np.int64)
         np.testing.assert_array_equal(scores[b].astype(np.int64), exp,
                                       err_msg=f"tu row {b}")
+
+
+def _dot_precisions(jaxpr):
+    """precision params of every dot_general in a jaxpr, sub-jaxprs too."""
+    found = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            found.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            for sub in v if isinstance(v, (list, tuple)) else (v,):
+                sub = getattr(sub, "jaxpr", sub)
+                if hasattr(sub, "eqns"):
+                    found += _dot_precisions(sub)
+    return found
+
+
+@pytest.mark.parametrize("path", ["onehot", "windows", "runs"])
+def test_count_matmuls_pinned_and_exact(path):
+    """Every count matmul carries Precision.HIGHEST, and counts at the
+    widest ladder rung (Wk = 1024 - 31 + 1 = 994 windows) equal numpy."""
+    import jax
+    from jax import lax
+
+    from fulgor_tpu.ops import intersect as I
+
+    rng = np.random.default_rng(4)
+    B, Wk, S, C32 = 2, 994, 40, 3
+    C = 32 * C32
+    bits = rng.integers(0, 1 << 32, (S, C32), dtype=np.uint64).astype(np.uint32)
+    bits[0] = 0xFFFFFFFF  # a set holding every color: its count reaches Wk
+    member = np.unpackbits(bits.view(np.uint8), axis=1,
+                           bitorder="little").astype(np.int64)  # (S, C)
+    if path == "runs":
+        R = 8
+        rc = rng.integers(0, S, (B, R)).astype(np.uint32)
+        rc[0] = 0
+        cnt = np.full((B, R), Wk // R, np.int32)
+        cnt[:, -1] += Wk - cnt.sum(axis=1)
+        want = np.einsum("br,brc->bc", cnt.astype(np.int64), member[rc])
+        fn, args = (lambda b, r, n: I.threshold_union_scores_runs(b, r, n, C),
+                    (bits, rc, cnt))
+    else:
+        csid = rng.integers(0, S, (B, Wk)).astype(np.uint32)
+        csid[0] = 0
+        hit = np.ones((B, Wk), bool)
+        hit[1, ::7] = False
+        want = np.stack([member[csid[b][hit[b]]].sum(axis=0)
+                         for b in range(B)])
+        score = (I.threshold_union_scores_onehot if path == "onehot"
+                 else I.threshold_union_scores_windows)
+        fn, args = (lambda b, h, c: score(b, h, c, C), (bits, hit, csid))
+    assert want.max() == Wk
+    precisions = _dot_precisions(jax.make_jaxpr(fn)(*args).jaxpr)
+    assert precisions and all(
+        p == (lax.Precision.HIGHEST, lax.Precision.HIGHEST) for p in precisions)
+    np.testing.assert_array_equal(np.asarray(fn(*args)), want)
+    if path == "onehot":
+        inter = np.stack([np.bitwise_and.reduce(bits[csid[b][hit[b]]], axis=0)
+                          for b in range(B)])
+        fi = lambda b, h, c: I.full_intersection_onehot(b, h, c)
+        assert all(p == (lax.Precision.HIGHEST, lax.Precision.HIGHEST)
+                   for p in _dot_precisions(jax.make_jaxpr(fi)(*args).jaxpr))
+        np.testing.assert_array_equal(np.asarray(fi(*args)), inter)
